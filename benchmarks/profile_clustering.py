@@ -23,12 +23,12 @@ def main():
     import jax.numpy as jnp
     import numpy as np
 
-    from lidar_ai_recommendation_software_tpu.config import MONOLITH_CONFIG
-    from lidar_ai_recommendation_software_tpu.ops import clustering, columns
-    from lidar_ai_recommendation_software_tpu.pipeline import (
+    from lidar_crowd.config import MONOLITH_CONFIG
+    from lidar_crowd.ops import clustering, columns
+    from lidar_crowd.pipeline import (
         Pipeline, enable_compilation_cache)
-    from lidar_ai_recommendation_software_tpu.synthetic import scaled_venue
-    from lidar_ai_recommendation_software_tpu.utils.profiling import (
+    from lidar_crowd.synthetic import scaled_venue
+    from lidar_crowd.utils.profiling import (
         device_timer)
 
     enable_compilation_cache()
@@ -130,7 +130,7 @@ def main():
             ("full_dbscan", prog_full, lambda r: r[0]),
             ("sweep_count", prog_iters, lambda r: r)):
         t0 = time.time()
-        s = device_timer(fn, mk, pull, iters=args.iters, warmup=1)
+        s = device_timer(fn, mk, iters=args.iters, warmup=1)
         r = fn(*mk(0))
         val = int(np.asarray(pull(r)))
         print(json.dumps({name: {"s": round(s, 4), "value": val,

@@ -2,17 +2,11 @@
 """Single set-abstraction layer benchmark (BASELINE.md config 2):
 FPS + ball-query grouping + shared-MLP pooling on an N-point frame.
 
-Runs the layer three ways and reports points/s plus roofline accounting
-(% of the chip's peak MXU FLOPs and HBM bandwidth, utils/profiling.py):
-
-  jnp        — XLA-compiled jnp ops (the differentiable training path)
-  fused      — Pallas ``fps`` + ``sa_mlp_pool`` kernels, f32 MXU
-  fused_bf16 — same kernels, bf16 MXU feed (f32 accumulate)
-
-The fused paths are the serving/benchmark configuration (BASELINE.json
-north star: FPS + ball-query + SA kernels at speed-of-light per chip);
-max|diff| between jnp and fused outputs is printed as the equivalence
-check. Usage: python benchmarks/sa_layer.py [--points 100000]
+Runs the layer with f32 and with bf16 matmul operands (f32 accumulate)
+and reports ms per layer, points/s and roofline shares against the
+device's published peaks (utils/profiling.py); max|diff| between the two
+is printed beside them. Usage: python benchmarks/sa_layer.py
+[--points 100000]
 """
 
 from __future__ import annotations
@@ -37,14 +31,12 @@ def main():
     import jax
     import jax.numpy as jnp
 
-    from lidar_ai_recommendation_software_tpu.ops.grouping import (
-        ball_group, group_features)
-    from lidar_ai_recommendation_software_tpu.ops.pallas import (
-        kernels as pk)
-    from lidar_ai_recommendation_software_tpu.ops.sampling import (
+    from lidar_crowd.ops.grouping import (
+        ball_group, group_features, sa_mlp_pool)
+    from lidar_crowd.ops.sampling import (
         farthest_point_sampling)
-    from lidar_ai_recommendation_software_tpu.synthetic import scaled_venue
-    from lidar_ai_recommendation_software_tpu.utils.profiling import (
+    from lidar_crowd.synthetic import scaled_venue
+    from lidar_crowd.utils.profiling import (
         device_timer, roofline)
 
     n, m, k = args.points, args.samples, args.k
@@ -58,37 +50,26 @@ def main():
 
     mask = jnp.ones(n, bool)
 
-    def sa_layer(points, fused, compute_dtype=jnp.float32):
-        if fused:
-            idx = pk.fps(points, mask, m)
-        else:
-            idx = farthest_point_sampling(points, mask, m)
+    def sa_layer(points, compute_dtype):
+        idx = farthest_point_sampling(points, mask, m)
         cents = points[idx]
         cmask = mask[idx]
         gidx, gvalid = ball_group(cents, cmask, points, mask,
                                   args.radius, k)
         g = group_features(points, None, cents, gidx, gvalid)
-        if fused:
-            return pk.sa_mlp_pool(g, gvalid, w,
-                                  compute_dtype=compute_dtype)
-        x = g
-        for wi, bi in w:
-            x = jnp.maximum(
-                jnp.einsum("mkc,cd->mkd", x, wi,
-                           preferred_element_type=jnp.float32) + bi, 0.0)
-        x = jnp.where(gvalid[..., None], x, -1e9)
-        return jnp.max(x, axis=1)
+        return sa_mlp_pool(g, gvalid, w, compute_dtype=compute_dtype)
 
     clouds = [jnp.asarray(pts_np + i * 1e-4) for i in range(args.iters + 2)]
 
-    # equivalence: fused vs jnp on the same cloud
-    ref = np.asarray(jax.jit(lambda p: sa_layer(p, False))(clouds[0]))
-    fus = np.asarray(jax.jit(lambda p: sa_layer(p, True))(clouds[0]))
-    max_diff = float(np.abs(ref - fus).max())
+    f32 = np.asarray(jax.jit(lambda p: sa_layer(p, jnp.float32))(
+        clouds[0]))
+    bf16 = np.asarray(jax.jit(lambda p: sa_layer(p, jnp.bfloat16))(
+        clouds[0]))
+    max_diff = float(np.abs(f32 - bf16).max())
 
     # flop/byte model: FPS m*n (~8/pair distance+min) + ball query m*n
     # (~8) + MLP 2*m*k*sum(cin*cout); bytes: points in, grouped tensor
-    # once through VMEM, pooled out
+    # once, pooled out
     mlp_flops = m * k * sum(2 * a * b for a, b in
                             zip(dims[:-1], dims[1:]))
     flops = m * n * 8 + m * n * 8 + mlp_flops
@@ -96,32 +77,30 @@ def main():
                       + m * dims[-1] * 4)
 
     variants = {}
-    for name, fused, dt in (("jnp", False, jnp.float32),
-                            ("fused", True, jnp.float32),
-                            ("fused_bf16", True, jnp.bfloat16)):
-        f = jax.jit(lambda p, fused=fused, dt=dt: sa_layer(p, fused, dt))
+    for name, dt in (("f32", jnp.float32), ("bf16", jnp.bfloat16)):
+        f = jax.jit(lambda p, dt=dt: sa_layer(p, dt))
         sec = device_timer(f, lambda i: (clouds[i % len(clouds)],),
-                           lambda r: r[0, 0], iters=args.iters)
+                           iters=args.iters)
         rl = roofline(flops, bytes_accessed, sec)
         variants[name] = {
             "ms_per_layer": round(sec * 1000, 2),
             "points_per_sec": round(n / sec),
             "achieved_tflops": round(rl["achieved_tflops"], 3),
-            "achieved_gbps": round(rl.get("achieved_gbps", 0.0), 2),
-            "pct_peak_flops": round(rl.get("pct_peak_flops", 0.0), 3),
-            "pct_peak_bw": round(rl.get("pct_peak_bw", 0.0), 3),
+            "achieved_gbps": round(rl["achieved_gbps"], 2),
+            "pct_peak_flops": round(rl["pct_peak_flops"], 3),
+            "pct_peak_bw": round(rl["pct_peak_bw"], 3),
         }
 
-    best = variants["fused_bf16"]
+    best = variants["bf16"]
     print(json.dumps({
         "metric": "sa_layer_points_per_sec",
         "points": n, "samples": m, "k": k,
         "ms_per_layer": best["ms_per_layer"],
         "points_per_sec": best["points_per_sec"],
         "pct_peak_flops": best["pct_peak_flops"],
-        "max_diff_fused_vs_jnp": max_diff,
+        "max_diff_bf16_vs_f32": max_diff,
         "variants": variants,
-        "device": str(jax.devices()[0]),
+        "device": jax.devices()[0].device_kind,
     }))
 
 

@@ -2,8 +2,8 @@
 """Per-stage benchmark harness (BASELINE.md configs 1-4).
 
 Measures each pipeline stage (and the CPU oracle equivalents) at chosen
-sizes, printing a JSON document. Honest remote-device timing via
-utils/profiling.device_timer (distinct inputs + value-pull fences).
+sizes, printing a JSON document. Timing via utils/profiling.device_timer
+(distinct inputs, block_until_ready).
 
 Usage: python benchmarks/stages.py [--points 100000] [--iters 3]
 """
@@ -23,23 +23,19 @@ def main():
     ap.add_argument("--points", type=int, default=100_000)
     ap.add_argument("--iters", type=int, default=3)
     ap.add_argument("--skip-oracle", action="store_true")
-    ap.add_argument("--centroid-compare", action="store_true",
-                    help="time BOTH cluster_centroids backends "
-                         "(segment_sum scatter vs sort+scan) at this "
-                         "size, quantifying the >2M-point switch")
     args = ap.parse_args()
 
     import jax
     import jax.numpy as jnp
 
-    from lidar_ai_recommendation_software_tpu.models import (
+    from lidar_crowd.models import (
         density as dm, flow as fm)
-    from lidar_ai_recommendation_software_tpu.pipeline import Pipeline
-    from lidar_ai_recommendation_software_tpu.synthetic import scaled_venue
-    from lidar_ai_recommendation_software_tpu.types import PointCloud
-    from lidar_ai_recommendation_software_tpu.utils.profiling import (
+    from lidar_crowd.pipeline import Pipeline
+    from lidar_crowd.synthetic import scaled_venue
+    from lidar_crowd.types import PointCloud
+    from lidar_crowd.utils.profiling import (
         device_timer)
-    from lidar_ai_recommendation_software_tpu import preprocess as pp
+    from lidar_crowd import preprocess as pp
 
     n = args.points
     pts = scaled_venue(n)
@@ -60,7 +56,6 @@ def main():
     # full pipeline
     f_full = functools.partial(pipe.analyze_device, config=cfg)
     dt = device_timer(f_full, lambda i: (clouds[i % len(clouds)],),
-                      lambda r: r[2].density.max_density,
                       iters=args.iters)
     results["stages_ms"]["full_pipeline"] = round(dt * 1000, 2)
     results["points_per_sec"] = round(n / dt)
@@ -68,56 +63,30 @@ def main():
     # preprocess (includes clustering)
     pre = jax.jit(functools.partial(pp.preprocess, config=cfg))
     dt = device_timer(pre, lambda i: (clouds[i % len(clouds)],),
-                      lambda r: r.n_clusters, iters=args.iters)
+                      iters=args.iters)
     results["stages_ms"]["preprocess_with_clustering"] = round(dt * 1000,
                                                               2)
 
     processed = pre(clouds[0])
     ppl_fn = jax.jit(functools.partial(dm.extract_people, config=cfg))
     dt = device_timer(ppl_fn, lambda i: (processed,),
-                      lambda r: r.positions[0, 0], iters=args.iters)
+                      iters=args.iters)
     results["stages_ms"]["extract_people"] = round(dt * 1000, 2)
     people = ppl_fn(processed)
 
-    if args.centroid_compare:
-        from lidar_ai_recommendation_software_tpu.ops import clustering
-
-        kmax = cfg.capacity.max_people
-        cpts, clabels = processed.points, processed.labels
-
-        def seg_backend(p):
-            seg = jnp.where(clabels >= 0, clabels, kmax)
-            s = jax.ops.segment_sum(p, seg, num_segments=kmax + 1)[:kmax]
-            c = jax.ops.segment_sum(jnp.ones(p.shape[0], p.dtype), seg,
-                                    num_segments=kmax + 1)[:kmax]
-            return s / jnp.maximum(c, 1.0)[:, None]
-
-        def sort_backend(p):
-            seg = jnp.where(clabels >= 0, clabels, kmax)
-            s, c = clustering._centroids_sorted(
-                p, seg.astype(jnp.int32), kmax)
-            return s / jnp.maximum(c, 1.0)[:, None]
-
-        for name, fn in (("centroid_segment_sum", seg_backend),
-                         ("centroid_sort_scan", sort_backend)):
-            f = jax.jit(fn)
-            dt = device_timer(f, lambda i: (cpts + i * 1e-6,),
-                              lambda r: r[0, 0], iters=args.iters)
-            results["stages_ms"][name] = round(dt * 1000, 2)
-
     dens = jax.jit(functools.partial(dm.analyze_density, config=cfg))
     dt = device_timer(dens, lambda i: (processed, people),
-                      lambda r: r.max_density, iters=args.iters)
+                      iters=args.iters)
     results["stages_ms"]["density"] = round(dt * 1000, 2)
 
     u = jnp.asarray(fm.bottleneck_uniforms(), jnp.float32)
     flw = jax.jit(functools.partial(fm.analyze_flow, config=cfg))
     dt = device_timer(flw, lambda i: (processed, people, u),
-                      lambda r: r.avg_speed, iters=args.iters)
+                      iters=args.iters)
     results["stages_ms"]["flow"] = round(dt * 1000, 2)
 
     if not args.skip_oracle:
-        from lidar_ai_recommendation_software_tpu.oracle import (
+        from lidar_crowd.oracle import (
             reference as ref)
         t0 = time.time()
         oracle = ref.analyze(pts, variant="monolith")

@@ -22,8 +22,8 @@ def main():
     ap.add_argument("--dt", type=float, default=0.5)
     args = ap.parse_args()
 
-    from lidar_ai_recommendation_software_tpu.pipeline import Pipeline
-    from lidar_ai_recommendation_software_tpu.synthetic import (
+    from lidar_crowd.pipeline import Pipeline
+    from lidar_crowd.synthetic import (
         venue_sequence)
 
     extent = max(15.0, (args.points / 10000.0) ** 0.5 * 15.0)
@@ -32,8 +32,7 @@ def main():
                             n_points=args.points, n_people=n_people,
                             extent=extent, speed=1.0)
     pipe = Pipeline()
-    # warmup run absorbs jit compiles (capacity-dependent, ~40 s first
-    # time); report steady-state
+    # warmup run absorbs the jit compiles; report steady-state
     pipe.analyze_sequence(frames, dt=args.dt)
     t0 = time.time()
     out = pipe.analyze_sequence(frames, dt=args.dt)

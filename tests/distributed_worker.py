@@ -30,7 +30,7 @@ def main() -> int:
     from jax.experimental.multihost_utils import process_allgather
     from jax.sharding import NamedSharding, PartitionSpec as P
 
-    from lidar_ai_recommendation_software_tpu.parallel.mesh import (
+    from lidar_crowd.parallel.mesh import (
         initialize_distributed, make_mesh)
 
     initialize_distributed(f"127.0.0.1:{port}", num_processes=nproc,
@@ -40,9 +40,9 @@ def main() -> int:
     assert len(jax.local_devices()) == 4
 
     # -- dp x mp sharded train step (cross-process dp groups) ---------------
-    from lidar_ai_recommendation_software_tpu.models.train import (
+    from lidar_crowd.models.train import (
         TrainConfig, make_batch)
-    from lidar_ai_recommendation_software_tpu.parallel.trainer import (
+    from lidar_crowd.parallel.trainer import (
         make_sharded_train_step, sharded_init)
 
     cfg = TrainConfig(batch_size=4, n_points=256, grid=8, sa1_samples=64,
@@ -69,8 +69,8 @@ def main() -> int:
     # -- sp-sharded density (stripes split across the two processes) --------
     import dataclasses
 
-    from lidar_ai_recommendation_software_tpu.config import MONOLITH_CONFIG
-    from lidar_ai_recommendation_software_tpu.parallel.spatial import (
+    from lidar_crowd.config import MONOLITH_CONFIG
+    from lidar_crowd.parallel.spatial import (
         sharded_radius_density)
 
     pcfg = dataclasses.replace(

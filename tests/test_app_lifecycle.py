@@ -148,7 +148,7 @@ class _SidebarProxy:
 def fake_app(monkeypatch, tmp_path):
     fake = FakeStreamlit()
     monkeypatch.setitem(sys.modules, "streamlit", fake)
-    import lidar_ai_recommendation_software_tpu.app as app_mod
+    import lidar_crowd.app as app_mod
     app = importlib.reload(app_mod)
     assert app.HAVE_STREAMLIT
     fake.script["SQLite path"] = str(tmp_path / "lifecycle.sqlite")
@@ -168,7 +168,7 @@ def _texts(fake, kind):
 
 
 def test_db_backed_lifecycle(fake_app):
-    from lidar_ai_recommendation_software_tpu.utils.store import (
+    from lidar_crowd.utils.store import (
         ResultsStore)
 
     fake, rerun, db_path = fake_app
@@ -223,7 +223,7 @@ def test_db_backed_lifecycle(fake_app):
 
 
 def test_new_upload_starts_new_analysis(fake_app):
-    from lidar_ai_recommendation_software_tpu.utils.store import (
+    from lidar_crowd.utils.store import (
         ResultsStore)
 
     fake, rerun, db_path = fake_app
@@ -251,7 +251,7 @@ def test_autosave_off_touches_no_db(fake_app, tmp_path):
     rerun()
     assert fake.session_state.analysis_id is None
     # the Database tab still opens a store; it must be empty
-    from lidar_ai_recommendation_software_tpu.utils.store import (
+    from lidar_crowd.utils.store import (
         ResultsStore)
     store = ResultsStore(db_path)
     assert store.list_events() == []
@@ -262,7 +262,7 @@ def test_neural_variant_serves_and_autosaves(fake_app):
     """The Analyze tab's 'neural' variant serves CrowdNet end-to-end
     through the app — results render the same metric surface and the
     per-stage auto-save writes the same rows as the analytic variants."""
-    from lidar_ai_recommendation_software_tpu.utils.store import (
+    from lidar_crowd.utils.store import (
         ResultsStore)
 
     fake, rerun, db_path = fake_app

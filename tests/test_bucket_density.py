@@ -1,16 +1,15 @@
 """Coarse-bucketed radius count (ops/bucket_density.py): bit-exactness
-vs the brute-force paths, overflow accounting, and the pipeline-level
-dispatch + auto-retry (VERDICT r2: wire it or delete it — it is wired
-as radius_count_grid's venue-scale backend)."""
+vs the brute-force path, overflow accounting, the size-only choice
+between the two, and the pipeline-level dispatch + auto-retry."""
 
 import numpy as np
 import pytest
 
 import jax.numpy as jnp
 
-from lidar_ai_recommendation_software_tpu.models import density as D
-from lidar_ai_recommendation_software_tpu.ops import bucket_density as bd
-from lidar_ai_recommendation_software_tpu.types import People
+from lidar_crowd.models import density as D
+from lidar_crowd.ops import bucket_density as bd
+from lidar_crowd.types import People
 
 
 def _people(pos, live):
@@ -78,13 +77,13 @@ def test_pipeline_dispatch_and_retry(monkeypatch):
     with a starvation-level starting cap: the pipeline's auto-retry must
     double its way to an exact grid — analyze() output bit-matches the
     brute-force run."""
-    from lidar_ai_recommendation_software_tpu.pipeline import Pipeline
-    from lidar_ai_recommendation_software_tpu.synthetic import sample_venue
+    from lidar_crowd.pipeline import Pipeline
+    from lidar_crowd.synthetic import sample_venue
 
     pts = sample_venue()
     base = Pipeline().analyze(pts)
 
-    from lidar_ai_recommendation_software_tpu.config import MONOLITH_CONFIG
+    from lidar_crowd.config import MONOLITH_CONFIG
     monkeypatch.setattr(D, "BUCKETED_MIN_PAIRS", 0)
     pipe = Pipeline(MONOLITH_CONFIG.with_capacity(density_bucket_cap=2))
     out = pipe.analyze(pts)
@@ -94,3 +93,33 @@ def test_pipeline_dispatch_and_retry(monkeypatch):
     assert out["density"]["total_people"] == base["density"]["total_people"]
     assert [h["density"] for h in out["density"]["hotspots"]] == \
         [h["density"] for h in base["density"]["hotspots"]]
+
+
+@pytest.mark.parametrize("k,bucketed", [(63, False), (64, True),
+                                        (65, True)])
+def test_path_by_pair_count(monkeypatch, k, bucketed):
+    """radius_count_grid takes the bucketed path exactly when cells x
+    people capacity reaches BUCKETED_MIN_PAIRS (static sizes only), with
+    the same counts either way."""
+    gx, gy = 32, 32
+    monkeypatch.setattr(D, "BUCKETED_MIN_PAIRS", gx * gy * 64)
+    calls = []
+    real = bd.radius_count_bucketed
+
+    def spy(*a, **kw):
+        calls.append(1)
+        return real(*a, **kw)
+    monkeypatch.setattr(bd, "radius_count_bucketed", spy)
+
+    rng = np.random.RandomState(k)
+    pos = rng.uniform(0, 32, (k, 2)).astype(np.float32)
+    ppl = _people(pos, k - 3)
+    origin = jnp.asarray(np.zeros(2, np.float32))
+    counts, ov = D.radius_count_grid(ppl, origin, jnp.asarray(gx),
+                                     jnp.asarray(gy), gx, gy, 1.0, 2.0,
+                                     bucket_cap=64)
+    assert bool(calls) == bucketed
+    assert int(ov) == 0
+    brute, _ = D.radius_count_grid(ppl, origin, jnp.asarray(gx),
+                                   jnp.asarray(gy), gx, gy, 1.0, 2.0)
+    np.testing.assert_array_equal(np.asarray(counts), np.asarray(brute))

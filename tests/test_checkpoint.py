@@ -1,12 +1,12 @@
 """Orbax checkpoint save/restore round trip (SURVEY.md §5
-checkpoint/resume — the TPU-native analogue of the reference's session
+checkpoint/resume — the analogue of the reference's session
 state / .lcap files / DB rows)."""
 
 import jax
 import numpy as np
 import pytest
 
-from lidar_ai_recommendation_software_tpu.models.train import (
+from lidar_crowd.models.train import (
     TrainConfig, fit, init_state, restore_checkpoint, save_checkpoint)
 
 TINY = TrainConfig(batch_size=2, n_points=256, grid=8, sa1_samples=64,

@@ -6,7 +6,7 @@ import numpy as np
 import pytest
 from sklearn.cluster import DBSCAN
 
-from lidar_ai_recommendation_software_tpu.ops import clustering
+from lidar_crowd.ops import clustering
 
 
 def _census(labels, pts):
@@ -108,39 +108,6 @@ def test_cluster_centroids_overflow_count():
     assert np.asarray(valid).sum() == 4
 
 
-def test_dbscan_gs_matches_columns_and_sklearn():
-    """The Pallas Gauss-Seidel CCL (interpret mode on CPU) reaches the
-    same fixpoint as the jnp column path and sklearn's census — min-
-    propagation has a unique fixpoint, so update order cannot matter."""
-    from lidar_ai_recommendation_software_tpu.ops import ccl
-
-    rng = np.random.RandomState(7)
-    centers = rng.uniform(-10, 10, (40, 2))
-    n = 1500
-    pts = np.zeros((n, 3), np.float32)
-    pts[:, :2] = centers[rng.randint(0, 40, n)] + rng.normal(0, 0.1, (n, 2))
-    pts[:, 2] = rng.uniform(0, 1.8, n)
-    cap = 2048
-    buf = np.zeros((cap, 3), np.float32)
-    buf[:n] = pts
-    mask = np.zeros(cap, bool)
-    mask[:n] = True
-
-    lab_ref, k_ref, _ = clustering.dbscan_columns(
-        jnp.asarray(buf), jnp.asarray(mask), 0.35, 5,
-        ncx=64, ncy=64, column_cap=64)
-    lab_gs, k_gs, ovf = ccl.dbscan_gs(
-        jnp.asarray(buf), jnp.asarray(mask), 0.35, 5,
-        ncx=64, ncy=64, column_cap=64)
-    assert int(ovf) == 0
-    assert int(k_gs) == int(k_ref)
-    assert (np.asarray(lab_gs) == np.asarray(lab_ref)).all()
-
-    sk = DBSCAN(eps=0.35, min_samples=5).fit(pts).labels_
-    assert int(k_gs) == sk.max() + 1
-    assert _census(np.asarray(lab_gs)[:n], pts) == _census(sk, pts)
-
-
 def _modular_scale(pts):
     """The modular variant's StandardScaler warp (preprocess.py:115-126):
     per-axis masked standardisation of the clustering inputs."""
@@ -200,10 +167,10 @@ def test_modular_pipeline_venue_scale_census():
     band that used to route warped space through eps-columns and
     silently drop ~95% of points as column overflow) must reproduce
     the CPU reference oracle's census."""
-    from lidar_ai_recommendation_software_tpu.config import MODULAR_CONFIG
-    from lidar_ai_recommendation_software_tpu.oracle import (
+    from lidar_crowd.config import MODULAR_CONFIG
+    from lidar_crowd.oracle import (
         reference as ref)
-    from lidar_ai_recommendation_software_tpu.pipeline import Pipeline
+    from lidar_crowd.pipeline import Pipeline
 
     n = 48_000
     pts = _blob_venue(n, n_blobs=24, extent=90.0, z_max=0.6, seed=7
@@ -226,8 +193,8 @@ def test_modular_overflow_ceiling_raises(monkeypatch):
     not return a silently-wrong census (reference counterpart: sklearn
     MemoryError, utils/data_processing.py:197). Exercised by shrinking
     the wall rather than allocating 131k^2 bits."""
-    from lidar_ai_recommendation_software_tpu.config import MODULAR_CONFIG
-    from lidar_ai_recommendation_software_tpu.pipeline import Pipeline
+    from lidar_crowd.config import MODULAR_CONFIG
+    from lidar_crowd.pipeline import Pipeline
 
     monkeypatch.setattr(clustering, "BRUTEFORCE_HARD_CAP", 1024)
     pts = _blob_venue(6_000, n_blobs=12, extent=60.0, z_max=0.5, seed=9
@@ -238,11 +205,10 @@ def test_modular_overflow_ceiling_raises(monkeypatch):
 
 
 def test_centroids_sorted_no_phantom_slots():
-    """The sort+scan centroid backend must leave slots past the dense
-    cluster count EXACTLY zero. The pre-r4 packing put partial prefix
-    rows there (counts > 0 -> phantom people at venue scale, where this
-    backend is the active one); and it must bit-agree with the
-    segment_sum backend on the real slots."""
+    """The sort+scan centroid path must leave slots past the dense
+    cluster count EXACTLY zero (a packing that left partial prefix rows
+    there would report phantom people), and agree with a segment_sum
+    scatter-add on the real slots."""
     import jax
 
     rng = np.random.RandomState(7)
@@ -266,72 +232,11 @@ def test_centroids_sorted_no_phantom_slots():
     np.testing.assert_allclose(sums, np.asarray(ref_s), atol=2e-3)
 
 
-def test_blocked_prefix_matches_flat_scan():
-    """_blocked_prefix (the compile-size-bounded hierarchical prefix)
-    must agree with a flat associative_scan across block boundaries,
-    non-multiple lengths, and pytree channels."""
-    import jax
-
-    from lidar_ai_recommendation_software_tpu.ops import clustering
-
-    rng = np.random.RandomState(3)
-    n = 3 * 1000 + 77  # crosses blocks, not a multiple of the block
-    x = rng.uniform(-50, 50, (n, 2)).astype(np.float32)
-
-    def op(a, b):
-        (s1, e1), c1 = a
-        (s2, e2), c2 = b
-        return clustering._df_add((s1, e1), (s2, e2)), c1 + c2
-
-    xs = ((jnp.asarray(x), jnp.zeros_like(x)),
-          jnp.ones((n,), jnp.int32))
-    (bh, bl), bc = clustering._blocked_prefix(op, xs, block=1000)
-    (fh, fl), fc = jax.lax.associative_scan(op, xs)
-
-    np.testing.assert_allclose(np.asarray(bh) + np.asarray(bl),
-                               np.asarray(fh) + np.asarray(fl),
-                               rtol=1e-6, atol=1e-3)
-    np.testing.assert_array_equal(np.asarray(bc), np.asarray(fc))
-    # exactness of the final double-float total vs float64
-    want = x.astype(np.float64).sum(axis=0)
-    got = (np.asarray(bh) + np.asarray(bl))[-1]
-    np.testing.assert_allclose(got, want, atol=1e-3)
-
-
-def test_gs_blocked_kernel_matches_per_row():
-    """The blocked Gauss-Seidel kernel (rows_per_block > 1) must produce
-    bit-identical labels and change counts to the per-row kernel — the
-    update order is the same by construction; this pins it."""
-    import jax.numpy as jnp
-
-    from lidar_ai_recommendation_software_tpu.ops import ccl
-
-    rng = np.random.RandomState(7)
-    n = 3000
-    pts = jnp.asarray(rng.uniform(-8, 8, (n, 3)), np.float32)
-    mask = jnp.asarray(rng.rand(n) > 0.1)
-    eps = 0.5
-    planes = ccl.build_planes_stream(pts, mask, min_cell=eps, ncx=16,
-                                     ncy=16, cap=32)
-    labels0 = jnp.where(planes.ptidx >= 0, planes.ptidx, ccl.INT_MAX)
-    lab1, ch1, _ = ccl.gs_passes((planes.xs, planes.ys, planes.zs),
-                                 labels0, eps, npass=2, rows_per_block=1)
-    lab2, ch2, lane2 = ccl.gs_passes((planes.xs, planes.ys, planes.zs),
-                                     labels0, eps, npass=2,
-                                     rows_per_block=4)
-    # lane-change totals equal the summed block changes
-    assert np.asarray(lane2).sum() == np.asarray(ch2).sum()
-    np.testing.assert_array_equal(np.asarray(lab1), np.asarray(lab2))
-    # per-pass totals agree (blocked reports per-block counts)
-    np.testing.assert_array_equal(np.asarray(ch1).sum(axis=1),
-                                  np.asarray(ch2).sum(axis=1))
-
-
 def test_lane_prefix_df_matches_float64_cumsum():
     """The lane-parallel compensated prefix must track the float64
     cumsum to double-float accuracy (~2^-40 relative at 200k rows,
     far beyond plain f32's ~1e-3 drift there)."""
-    from lidar_ai_recommendation_software_tpu.ops import clustering as cl
+    from lidar_crowd.ops import clustering as cl
 
     rng = np.random.RandomState(11)
     n = 200_000
@@ -344,27 +249,77 @@ def test_lane_prefix_df_matches_float64_cumsum():
     # and the compensated pair is much tighter than hi alone
     assert err < np.abs(np.asarray(hi, np.float64) - want).max() + 1e-9
 
-def test_gs_blocked_activity_skipping_reaches_same_fixpoint():
-    """With activity skipping, more passes per call must land on the
-    same fixpoint as chained 2-pass calls, and the final pass must
-    certify with all-zero change counts."""
-    import jax.numpy as jnp
 
-    from lidar_ai_recommendation_software_tpu.ops import ccl
+@pytest.mark.parametrize("capacity,path", [(2016, "bruteforce"),
+                                           (2048, "bruteforce"),
+                                           (2080, "columns")])
+def test_dbscan_path_by_capacity(monkeypatch, capacity, path):
+    """dbscan_labels picks its path from the static capacity alone —
+    all-pairs up to BRUTEFORCE_MAX_POINTS, column grid above — and both
+    paths give the same labels on the same points."""
+    monkeypatch.setattr(clustering, "BRUTEFORCE_MAX_POINTS", 2048)
+    taken = []
+    for name in ("dbscan_bruteforce", "dbscan_columns"):
+        real = getattr(clustering, name)
 
-    rng = np.random.RandomState(8)
-    n = 2000
-    pts = jnp.asarray(rng.uniform(-6, 6, (n, 3)), np.float32)
-    mask = jnp.ones(n, bool)
-    eps = 0.5
-    planes = ccl.build_planes_stream(pts, mask, min_cell=eps, ncx=16,
-                                     ncy=16, cap=32)
-    labels0 = jnp.where(planes.ptidx >= 0, planes.ptidx, ccl.INT_MAX)
-    lab_a = labels0
-    for _ in range(4):
-        lab_a, _, _ = ccl.gs_passes((planes.xs, planes.ys, planes.zs),
-                                    lab_a, eps, npass=2, rows_per_block=1)
-    lab_b, ch_b, _ = ccl.gs_passes((planes.xs, planes.ys, planes.zs),
-                                   labels0, eps, npass=8, rows_per_block=4)
-    np.testing.assert_array_equal(np.asarray(lab_a), np.asarray(lab_b))
-    assert np.asarray(ch_b)[-1].sum() == 0
+        def spy(*a, _real=real, _name=name, **kw):
+            taken.append(_name)
+            return _real(*a, **kw)
+        monkeypatch.setattr(clustering, name, spy)
+
+    rng = np.random.RandomState(4)
+    n = 1500
+    centers = rng.uniform(-10, 10, (40, 2))
+    pts = np.zeros((n, 3), np.float32)
+    pts[:, :2] = centers[rng.randint(0, 40, n)] + rng.normal(0, 0.12,
+                                                             (n, 2))
+    pts[:, 2] = rng.uniform(0, 1.8, n)
+
+    def run(cap):
+        buf = np.zeros((cap, 3), np.float32)
+        buf[:n] = pts
+        labels, ncl, overflow = clustering.dbscan_labels(
+            jnp.asarray(buf), jnp.asarray(np.arange(cap) < n), 0.35, 5,
+            ncx=64, ncy=64, column_cap=64)
+        assert int(overflow) == 0
+        return np.asarray(labels)[:n], int(ncl)
+
+    labels, ncl = run(capacity)
+    assert taken == ["dbscan_" + path]
+
+    sk = DBSCAN(eps=0.35, min_samples=5).fit(pts).labels_
+    assert ncl == sk.max() + 1
+    assert _census(labels, pts) == _census(sk, pts)
+    ref, _ = run(4096)    # column path
+    np.testing.assert_array_equal(labels, ref)
+
+
+@pytest.mark.parametrize("n,n_clusters,k", [(1000, 1, 8),
+                                            (50_000, 3_000, 4_096),
+                                            (300_000, 40_000, 40_000)])
+def test_cluster_centroids_match_float64(n, n_clusters, k):
+    """cluster_centroids (one path at every size) equals NumPy float64
+    segment means to within a few f32 ulps, counts exactly, and gives the
+    same bits on a second run."""
+    rng = np.random.RandomState(n)
+    pts = rng.uniform(-500, 500, (n, 3)).astype(np.float32)
+    labels = np.concatenate([np.arange(n_clusters),
+                             rng.randint(-1, n_clusters, n - n_clusters)])
+    labels = labels[rng.permutation(n)].astype(np.int32)
+    cents, valid, overflow = clustering.cluster_centroids(
+        jnp.asarray(pts), jnp.asarray(labels), k)
+    again = clustering.cluster_centroids(
+        jnp.asarray(pts), jnp.asarray(labels), k)[0]
+
+    ok = labels >= 0
+    cnt = np.bincount(labels[ok], minlength=k)
+    want = np.stack([np.bincount(labels[ok], pts[ok, i].astype(np.float64),
+                                 minlength=k) for i in range(3)], 1)
+    want /= np.maximum(cnt, 1)[:, None]
+    live = cnt > 0
+    assert int(overflow) == 0
+    np.testing.assert_array_equal(np.asarray(valid), live)
+    # 500 m coordinates: one f32 ulp is 3.1e-5 m
+    np.testing.assert_allclose(np.asarray(cents)[live], want[live],
+                               rtol=0, atol=2e-4)
+    np.testing.assert_array_equal(np.asarray(cents), np.asarray(again))

@@ -3,12 +3,12 @@ work end-to-end (app.py:78-297 usage flow)."""
 
 import numpy as np
 
-from lidar_ai_recommendation_software_tpu import compat
+from lidar_crowd import compat
 
 
 def test_reference_call_pattern(tmp_path, fixture_points):
     # the reference's modular app flow, verbatim shape-wise
-    from lidar_ai_recommendation_software_tpu.utils.io import save_points
+    from lidar_crowd.utils.io import save_points
     path = str(tmp_path / "venue.xyz")
     save_points(path, fixture_points)
 

@@ -153,9 +153,9 @@ def fake_tk(monkeypatch):
 
 
 def test_desktop_shell_full_session(fake_tk, tmp_path):
-    from lidar_ai_recommendation_software_tpu import desktop
-    from lidar_ai_recommendation_software_tpu.synthetic import sample_venue
-    from lidar_ai_recommendation_software_tpu.utils import io as pio
+    from lidar_crowd import desktop
+    from lidar_crowd.synthetic import sample_venue
+    from lidar_crowd.utils import io as pio
 
     pts = sample_venue(n_points=2000, n_people=25, seed=6)
     npy = tmp_path / "venue.npy"
@@ -212,9 +212,9 @@ def test_desktop_shell_full_session(fake_tk, tmp_path):
 
 def test_desktop_status_reflects_analysis(fake_tk, tmp_path):
     """The statusbar line after F5 carries the real analysis numbers."""
-    from lidar_ai_recommendation_software_tpu import desktop
-    from lidar_ai_recommendation_software_tpu.synthetic import sample_venue
-    from lidar_ai_recommendation_software_tpu.utils import io as pio
+    from lidar_crowd import desktop
+    from lidar_crowd.synthetic import sample_venue
+    from lidar_crowd.utils import io as pio
 
     pts = sample_venue(n_points=2000, n_people=25, seed=6)
     npy = tmp_path / "v.npy"
@@ -238,9 +238,9 @@ def test_desktop_status_reflects_analysis(fake_tk, tmp_path):
 def test_desktop_neural_analysis(fake_tk, tmp_path):
     """The Analysis menu's neural entry serves CrowdNet through the
     shell: real count in the statusbar, heatmap rendered."""
-    from lidar_ai_recommendation_software_tpu import desktop
-    from lidar_ai_recommendation_software_tpu.synthetic import sample_venue
-    from lidar_ai_recommendation_software_tpu.utils import io as pio
+    from lidar_crowd import desktop
+    from lidar_crowd.synthetic import sample_venue
+    from lidar_crowd.utils import io as pio
 
     pts = sample_venue(n_points=2048, n_people=25, seed=8)
     npy = tmp_path / "v.npy"

@@ -4,7 +4,7 @@ single-process analogue of race detection (SURVEY.md §5)."""
 
 import numpy as np
 
-from lidar_ai_recommendation_software_tpu.pipeline import Pipeline
+from lidar_crowd.pipeline import Pipeline
 
 
 def test_pipeline_bitwise_deterministic(fixture_points):
@@ -23,7 +23,7 @@ def test_pipeline_bitwise_deterministic(fixture_points):
 def test_training_step_deterministic():
     import jax.numpy as jnp
 
-    from lidar_ai_recommendation_software_tpu.models.train import (
+    from lidar_crowd.models.train import (
         TrainConfig, init_state, make_batch, train_step)
     cfg = TrainConfig(batch_size=2, n_points=256, grid=8, sa1_samples=64,
                       sa2_samples=16)

@@ -4,7 +4,7 @@
 import jax.numpy as jnp
 import numpy as np
 
-from lidar_ai_recommendation_software_tpu.ops.grouping import (
+from lidar_crowd.ops.grouping import (
     ball_group, group_features)
 
 
@@ -43,8 +43,8 @@ def test_ball_group_masks_and_empty():
 
 
 def test_ball_group_hashgrid_backend_matches_dense():
-    """The hashgrid backend (large-N path: the dense TopK overflows
-    scoped VMEM past ~256k sources) must return the SAME neighbor SET as
+    """The hashgrid backend (the large-N path, past
+    BRUTEFORCE_MAX_SOURCE sources) must return the SAME neighbor SET as
     the dense path wherever a neighborhood fits in K, and the same
     neighbor count (capped at K) everywhere."""
     rng = np.random.RandomState(7)

@@ -4,7 +4,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from lidar_ai_recommendation_software_tpu.ops import hashgrid
+from lidar_crowd.ops import hashgrid
 
 
 def _random_cloud(n, cap, d=3, seed=0, scale=5.0):

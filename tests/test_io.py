@@ -3,7 +3,7 @@
 import numpy as np
 import pytest
 
-from lidar_ai_recommendation_software_tpu.utils import io as pio
+from lidar_crowd.utils import io as pio
 
 
 @pytest.fixture
@@ -115,6 +115,6 @@ def test_pcd_binary_compressed_lzf(tmp_path, pts):
 
 
 def test_pcd_binary_compressed_python_fallback(tmp_path, pts, monkeypatch):
-    from lidar_ai_recommendation_software_tpu.utils import native
+    from lidar_crowd.utils import native
     monkeypatch.setattr(native, "get_lib", lambda: None)
     test_pcd_binary_compressed_lzf(tmp_path, pts)

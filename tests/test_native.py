@@ -5,8 +5,8 @@ import time
 import numpy as np
 import pytest
 
-from lidar_ai_recommendation_software_tpu.utils import io as pio
-from lidar_ai_recommendation_software_tpu.utils import native
+from lidar_crowd.utils import io as pio
+from lidar_crowd.utils import native
 
 needs_native = pytest.mark.skipif(not native.available(),
                                   reason="g++ toolchain unavailable")

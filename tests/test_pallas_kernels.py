@@ -1,48 +1,94 @@
-"""Pallas kernel correctness vs jnp oracles (interpret mode on CPU)."""
+"""The plain jnp paths that replaced the former Pallas kernels, checked
+against NumPy references: the density radius count, the set-abstraction
+MLP + masked max-pool, and farthest-point sampling (single, batched and
+vmapped)."""
 
 import jax
 import jax.numpy as jnp
 import numpy as np
-import pytest
 
-from lidar_ai_recommendation_software_tpu.ops.pallas import kernels as K
-from lidar_ai_recommendation_software_tpu.ops.sampling import (
-    farthest_point_sampling)
+from lidar_crowd.models import density as dm
+from lidar_crowd.ops.grouping import sa_mlp_pool
+from lidar_crowd.ops.sampling import farthest_point_sampling
+from lidar_crowd.types import People
+
+
+def _radius_count_np(centers, people, pmask, radius):
+    d2 = ((centers[:, None, :].astype(np.float32)
+           - people[None, :, :].astype(np.float32)) ** 2).sum(-1)
+    return ((d2 <= np.float32(radius) ** 2) & pmask[None, :]).sum(1)
+
+
+def _fps_np(points, mask, n_samples, start=0):
+    """Brute-force FPS: the first max of the running min-distance."""
+    pts = points.astype(np.float32)
+    dist = np.full(len(pts), np.finfo(np.float32).max, np.float32)
+    out = [start]
+    for _ in range(1, n_samples):
+        d = ((pts - pts[out[-1]]) ** 2).sum(1)
+        dist = np.minimum(dist, d)
+        out.append(int(np.argmax(np.where(mask, dist, -np.inf))))
+    return np.asarray(out, np.int32)
+
+
+def _sa_np(grouped, valid, weights):
+    x = grouped.astype(np.float64)
+    for w, b in weights:
+        x = np.maximum(x @ np.asarray(w, np.float64) + np.asarray(b), 0.0)
+    x = np.where(valid[..., None], x, -1e9)
+    return np.where(valid.any(1)[:, None], x.max(1), 0.0)
 
 
 class TestRadiusCount:
     def test_matches_reference(self):
         rng = np.random.RandomState(0)
-        centers = jnp.asarray(rng.uniform(-10, 10, (700, 2)), jnp.float32)
-        people = jnp.asarray(rng.uniform(-10, 10, (300, 2)), jnp.float32)
-        pmask = jnp.asarray(np.arange(300) < 250)
-        got = K.radius_count(centers, people, pmask, 2.0, tile=256)
-        want = K.radius_count_reference(centers, people, pmask, 2.0)
-        np.testing.assert_array_equal(np.asarray(got), np.asarray(want))
+        gx, gy, k = 24, 30, 300
+        people = rng.uniform(0, 25, (k, 2)).astype(np.float32)
+        pmask = np.arange(k) < 250
+        origin = np.asarray([0.0, 0.0], np.float32)
+        counts, overflow = dm.radius_count_grid(
+            People(positions=jnp.asarray(people), mask=jnp.asarray(pmask),
+                   z=jnp.zeros(k)),
+            jnp.asarray(origin), jnp.asarray(gx), jnp.asarray(gy), gx, gy,
+            1.0, 2.0, chunk=128)
+        ci, cj = np.meshgrid(np.arange(gx), np.arange(gy), indexing="ij")
+        centers = np.stack([(ci + 0.5).ravel(), (cj + 0.5).ravel()], 1)
+        want = _radius_count_np(centers, people, pmask, 2.0)
+        np.testing.assert_array_equal(np.asarray(counts).ravel(), want)
+        assert int(overflow) == 0
 
     def test_empty_people(self):
-        centers = jnp.zeros((16, 2), jnp.float32)
-        people = jnp.zeros((8, 2), jnp.float32)
-        got = K.radius_count(centers, people, jnp.zeros(8, bool), 1.0,
-                             tile=16)
-        assert np.asarray(got).sum() == 0
+        k = 8
+        counts, _ = dm.radius_count_grid(
+            People(positions=jnp.zeros((k, 2)), mask=jnp.zeros(k, bool),
+                   z=jnp.zeros(k)),
+            jnp.zeros(2), jnp.asarray(4), jnp.asarray(4), 4, 4, 1.0, 1.0)
+        assert np.asarray(counts).sum() == 0
 
 
 class TestSAMLPPool:
     def test_matches_reference(self):
         rng = np.random.RandomState(1)
         m, k, cin = 100, 16, 6
-        grouped = jnp.asarray(rng.randn(m, k, cin), jnp.float32)
-        valid = jnp.asarray(rng.rand(m, k) > 0.3)
+        grouped = rng.randn(m, k, cin).astype(np.float32)
+        valid = rng.rand(m, k) > 0.3
         dims = [cin, 16, 16, 32]
-        weights = []
-        for a, b in zip(dims[:-1], dims[1:]):
-            weights.append((jnp.asarray(rng.randn(a, b) * 0.2, jnp.float32),
-                            jnp.asarray(rng.randn(b) * 0.1, jnp.float32)))
-        got = K.sa_mlp_pool(grouped, valid, weights, tile=32)
-        want = K.sa_mlp_pool_reference(grouped, valid, weights)
-        np.testing.assert_allclose(np.asarray(got), np.asarray(want),
+        weights = [(rng.randn(a, b).astype(np.float32) * 0.2,
+                    rng.randn(b).astype(np.float32) * 0.1)
+                   for a, b in zip(dims[:-1], dims[1:])]
+        with jax.default_matmul_precision("highest"):
+            got = sa_mlp_pool(jnp.asarray(grouped), jnp.asarray(valid),
+                              [(jnp.asarray(w), jnp.asarray(b))
+                               for w, b in weights])
+        np.testing.assert_allclose(np.asarray(got),
+                                   _sa_np(grouped, valid, weights),
                                    atol=1e-4)
+        # bf16 operands, f32 accumulation: within bf16 rounding
+        bf = sa_mlp_pool(jnp.asarray(grouped), jnp.asarray(valid),
+                         [(jnp.asarray(w), jnp.asarray(b))
+                          for w, b in weights], compute_dtype=jnp.bfloat16)
+        np.testing.assert_allclose(np.asarray(bf), np.asarray(got),
+                                   atol=0.05 * float(np.abs(got).max()))
 
     def test_empty_neighborhood_zeroed(self):
         m, k, cin = 8, 4, 3
@@ -54,47 +100,19 @@ class TestSAMLPPool:
                     jnp.zeros(8, jnp.float32)),
                    (jnp.eye(8, 8, dtype=jnp.float32),
                     jnp.zeros(8, jnp.float32))]
-        got = np.asarray(K.sa_mlp_pool(grouped, valid, weights, tile=8))
+        got = np.asarray(sa_mlp_pool(grouped, valid, weights))
         assert np.all(got[1:] == 0.0)
         assert np.any(got[0] != 0.0)
-
-
-class TestCrowdNetFusedPath:
-    """CrowdNet(use_pallas=True) must match the differentiable jnp path
-    with the same parameters — the fused kernels are the serving path."""
-
-    def test_forward_equivalence(self):
-        from lidar_ai_recommendation_software_tpu.models.crowdnet import (
-            CrowdNet)
-
-        rng = np.random.RandomState(3)
-        n = 512
-        pts = jnp.asarray(rng.uniform(-8, 8, (n, 3)), jnp.float32)
-        mask = jnp.asarray(np.arange(n) < 480)
-        vmin = jnp.asarray([-8.0, -8.0], jnp.float32)
-        vsize = jnp.asarray(16.0, jnp.float32)
-
-        kw = dict(sa1_samples=128, sa2_samples=32, grid=16)
-        ref_net = CrowdNet(use_pallas=False, **kw)
-        params = ref_net.init(jax.random.PRNGKey(0), pts, mask, vmin,
-                              vsize)
-        want = ref_net.apply(params, pts, mask, vmin, vsize)
-        got = CrowdNet(use_pallas=True, **kw).apply(
-            params, pts, mask, vmin, vsize)
-        for key in ("density", "flow", "congestion"):
-            np.testing.assert_allclose(np.asarray(got[key]),
-                                       np.asarray(want[key]),
-                                       atol=1e-4, rtol=1e-4)
 
 
 class TestFPS:
     def test_matches_jnp_fps(self):
         rng = np.random.RandomState(2)
-        pts = jnp.asarray(rng.uniform(-5, 5, (256, 3)), jnp.float32)
-        mask = jnp.asarray(np.arange(256) < 200)
-        got = np.asarray(K.fps(pts, mask, 32))
-        want = np.asarray(farthest_point_sampling(pts, mask, 32))
-        np.testing.assert_array_equal(got, want)
+        pts = rng.uniform(-5, 5, (256, 3)).astype(np.float32)
+        mask = np.arange(256) < 200
+        got = np.asarray(farthest_point_sampling(
+            jnp.asarray(pts), jnp.asarray(mask), 32))
+        np.testing.assert_array_equal(got, _fps_np(pts, mask, 32))
 
     def test_spreads_over_cloud(self):
         # FPS on a line must pick the two endpoints early
@@ -102,21 +120,17 @@ class TestFPS:
             np.stack([np.linspace(0, 10, 128),
                       np.zeros(128), np.zeros(128)], 1), jnp.float32)
         mask = jnp.ones(128, bool)
-        sel = np.asarray(K.fps(pts, mask, 4))
+        sel = np.asarray(farthest_point_sampling(pts, mask, 4))
         assert 0 in sel and 127 in sel
 
     def test_batched_and_vmap_match_single(self):
-        # auto-vmap of the 1D-SMEM-output kernel is illegal on TPU; the
-        # custom_vmap rule must route to the batched grid kernel with
-        # identical selections (this is the path CrowdNet's lifted vmap
-        # takes in training/serving)
+        # the batched form CrowdNet's lifted vmap takes must select
+        # exactly what the brute-force reference selects per example
         rng = np.random.RandomState(3)
-        pts = jnp.asarray(rng.uniform(-5, 5, (4, 300, 3)), jnp.float32)
-        mask = jnp.asarray(rng.rand(4, 300) > 0.15)
-        singles = np.stack(
-            [np.asarray(K.fps(pts[i], mask[i], 24)) for i in range(4)])
-        batched = np.asarray(K.fps(pts, mask, 24))
-        vmapped = np.asarray(jax.jit(
-            jax.vmap(lambda p, m: K.fps(p, m, 24)))(pts, mask))
-        np.testing.assert_array_equal(singles, batched)
-        np.testing.assert_array_equal(singles, vmapped)
+        pts = rng.uniform(-5, 5, (4, 300, 3)).astype(np.float32)
+        mask = rng.rand(4, 300) > 0.15
+        want = np.stack([_fps_np(pts[i], mask[i], 24) for i in range(4)])
+        vmapped = np.asarray(jax.jit(jax.vmap(
+            lambda p, m: farthest_point_sampling(p, m, 24)))(
+                jnp.asarray(pts), jnp.asarray(mask)))
+        np.testing.assert_array_equal(vmapped, want)

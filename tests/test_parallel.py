@@ -8,13 +8,13 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from lidar_ai_recommendation_software_tpu.config import MONOLITH_CONFIG
-from lidar_ai_recommendation_software_tpu.models import flow as flow_mod
-from lidar_ai_recommendation_software_tpu.models.train import TrainConfig
-from lidar_ai_recommendation_software_tpu.parallel import spatial
-from lidar_ai_recommendation_software_tpu.parallel.mesh import (
+from lidar_crowd.config import MONOLITH_CONFIG
+from lidar_crowd.models import flow as flow_mod
+from lidar_crowd.models.train import TrainConfig
+from lidar_crowd.parallel import spatial
+from lidar_crowd.parallel.mesh import (
     make_mesh, spatial_mesh, train_mesh)
-from lidar_ai_recommendation_software_tpu.parallel.trainer import (
+from lidar_crowd.parallel.trainer import (
     run_sharded_steps)
 
 pytestmark = pytest.mark.skipif(
@@ -39,9 +39,9 @@ class TestShardedTraining:
 
     def test_dp_matches_single_device(self):
         """Same batch, same init: dp-sharded step == unsharded step."""
-        from lidar_ai_recommendation_software_tpu.models.train import (
+        from lidar_crowd.models.train import (
             init_state, make_batch, train_step)
-        from lidar_ai_recommendation_software_tpu.parallel.trainer import (
+        from lidar_crowd.parallel.trainer import (
             make_sharded_train_step, sharded_init)
 
         cfg = TINY
@@ -64,12 +64,12 @@ class TestShardedTraining:
 
 class TestSpatialSharding:
     def test_sharded_density_matches(self, fixture_points, oracle_monolith):
-        from lidar_ai_recommendation_software_tpu.models import (
+        from lidar_crowd.models import (
             density as dm)
-        from lidar_ai_recommendation_software_tpu.pipeline import Pipeline
+        from lidar_crowd.pipeline import Pipeline
         pipe = Pipeline(MONOLITH_CONFIG)
         cfg = pipe.fit_capacity(fixture_points)
-        from lidar_ai_recommendation_software_tpu.types import PointCloud
+        from lidar_crowd.types import PointCloud
         cloud = PointCloud.from_numpy(fixture_points,
                                       cfg.capacity.max_points)
         processed, people, res = pipe.analyze_device(cloud, cfg)
@@ -84,8 +84,8 @@ class TestSpatialSharding:
                                    atol=1e-6)
 
     def test_sharded_flow_matches(self, fixture_points):
-        from lidar_ai_recommendation_software_tpu.pipeline import Pipeline
-        from lidar_ai_recommendation_software_tpu.types import PointCloud
+        from lidar_crowd.pipeline import Pipeline
+        from lidar_crowd.types import PointCloud
         pipe = Pipeline(MONOLITH_CONFIG)
         cfg = pipe.fit_capacity(fixture_points)
         cloud = PointCloud.from_numpy(fixture_points,
@@ -153,9 +153,9 @@ class TestShardedDBSCAN:
     def test_matches_single_device(self):
         from sklearn.cluster import DBSCAN
 
-        from lidar_ai_recommendation_software_tpu.parallel import (
+        from lidar_crowd.parallel import (
             cluster as pc)
-        from lidar_ai_recommendation_software_tpu.parallel.mesh import (
+        from lidar_crowd.parallel.mesh import (
             make_mesh)
 
         pts = self._venue()
@@ -177,9 +177,9 @@ class TestShardedDBSCAN:
     def test_cross_boundary_component(self):
         """A single rope of points spanning every stripe boundary must
         come back as ONE cluster (worst case for halo exchange)."""
-        from lidar_ai_recommendation_software_tpu.parallel import (
+        from lidar_crowd.parallel import (
             cluster as pc)
-        from lidar_ai_recommendation_software_tpu.parallel.mesh import (
+        from lidar_crowd.parallel.mesh import (
             make_mesh)
 
         n = 400
@@ -197,13 +197,13 @@ class TestShardedDBSCAN:
         (same dense labels once representatives are compacted)."""
         import jax.numpy as jnp
 
-        from lidar_ai_recommendation_software_tpu.ops.clustering import (
+        from lidar_crowd.ops.clustering import (
             dbscan_labels)
-        from lidar_ai_recommendation_software_tpu.parallel import (
+        from lidar_crowd.parallel import (
             cluster as pc)
-        from lidar_ai_recommendation_software_tpu.parallel.mesh import (
+        from lidar_crowd.parallel.mesh import (
             make_mesh)
-        from lidar_ai_recommendation_software_tpu.synthetic import (
+        from lidar_crowd.synthetic import (
             scaled_venue)
 
         pts = scaled_venue(200_000).astype(np.float32)

@@ -1,12 +1,12 @@
-"""Golden-pipeline parity: the full jitted TPU pipeline vs the CPU oracle on
+"""Golden-pipeline parity: the full jitted pipeline vs the CPU oracle on
 the seed-42 fixture (SURVEY.md §4 test strategy, level (b))."""
 
 import numpy as np
 import pytest
 
-from lidar_ai_recommendation_software_tpu.config import (
+from lidar_crowd.config import (
     MODULAR_CONFIG, MONOLITH_CONFIG)
-from lidar_ai_recommendation_software_tpu.pipeline import Pipeline
+from lidar_crowd.pipeline import Pipeline
 
 
 @pytest.fixture(scope="module")
@@ -72,7 +72,7 @@ class TestMonolithParity:
 
     def test_recommendations_match_oracle_inputs(self, monolith_out,
                                                  oracle_monolith):
-        from lidar_ai_recommendation_software_tpu.utils.recommendations \
+        from lidar_crowd.utils.recommendations \
             import generate_recommendations
         ours = monolith_out["recommendations"]
         oref = generate_recommendations(oracle_monolith["density"],
@@ -157,7 +157,7 @@ class TestPeopleCapacityOverflow:
         return np.concatenate([ground] + blobs).astype(np.float32)
 
     def test_device_path_flags_overflow(self):
-        from lidar_ai_recommendation_software_tpu.types import PointCloud
+        from lidar_crowd.types import PointCloud
         pts = self._dense_venue()
         pipe = Pipeline(MONOLITH_CONFIG.with_capacity(max_people=4))
         cfg = pipe.fit_capacity(pts)

@@ -3,7 +3,7 @@
 import jax.numpy as jnp
 import numpy as np
 
-from lidar_ai_recommendation_software_tpu.utils import profiling
+from lidar_crowd.utils import profiling
 
 
 def test_stage_timing_registry():
@@ -20,17 +20,16 @@ def test_device_timer_runs():
     import jax
     f = jax.jit(lambda x: jnp.sum(x * 2))
     dt = profiling.device_timer(
-        f, make_input=lambda i: (jnp.ones((64,)) * i,),
-        pull=lambda r: r, iters=2, warmup=1)
+        f, make_input=lambda i: (jnp.ones((64,)) * i,), iters=2, warmup=1)
     assert dt >= 0
 
 
 def test_desktop_module_imports():
     # UI glue cannot run headless; the module itself must import cleanly
-    import lidar_ai_recommendation_software_tpu.desktop as d
+    import lidar_crowd.desktop as d
     assert callable(d.main)
 
 
 def test_streamlit_app_importable_without_streamlit():
-    import lidar_ai_recommendation_software_tpu.app as a
+    import lidar_crowd.app as a
     assert hasattr(a, "main")

@@ -1,7 +1,7 @@
 """Recommendations rule-cascade unit tests (utils/recommendations.py:1-190
 threshold semantics)."""
 
-from lidar_ai_recommendation_software_tpu.utils.recommendations import (
+from lidar_crowd.utils.recommendations import (
     generate_recommendations)
 
 

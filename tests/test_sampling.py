@@ -7,7 +7,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from lidar_ai_recommendation_software_tpu.ops.sampling import (
+from lidar_crowd.ops.sampling import (
     random_downsample, voxel_downsample)
 
 

@@ -2,7 +2,7 @@
 
 import numpy as np
 
-from lidar_ai_recommendation_software_tpu.synthetic import (
+from lidar_crowd.synthetic import (
     sample_venue, scaled_venue)
 
 

@@ -3,9 +3,9 @@
 import jax.numpy as jnp
 import numpy as np
 
-from lidar_ai_recommendation_software_tpu.config import MONOLITH_CONFIG
-from lidar_ai_recommendation_software_tpu.models import temporal
-from lidar_ai_recommendation_software_tpu.types import People
+from lidar_crowd.config import MONOLITH_CONFIG
+from lidar_crowd.models import temporal
+from lidar_crowd.types import People
 
 
 def _people(xy, cap=64, z=1.0):
@@ -209,8 +209,8 @@ def test_merge_split_event():
 def test_analyze_sequence_uses_all_frames():
     """Pipeline.analyze_sequence tracks the whole sequence (not just the
     last pair) and measures the generator's known motion."""
-    from lidar_ai_recommendation_software_tpu.pipeline import Pipeline
-    from lidar_ai_recommendation_software_tpu.synthetic import (
+    from lidar_crowd.pipeline import Pipeline
+    from lidar_crowd.synthetic import (
         venue_sequence)
 
     frames = venue_sequence(n_frames=4, dt=0.5, n_points=8000,

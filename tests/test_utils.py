@@ -5,24 +5,24 @@ import os
 import numpy as np
 import pytest
 
-from lidar_ai_recommendation_software_tpu.utils.project import (
+from lidar_crowd.utils.project import (
     ProjectManager)
-from lidar_ai_recommendation_software_tpu.utils.report import (
+from lidar_crowd.utils.report import (
     generate_report, risk_level)
-from lidar_ai_recommendation_software_tpu.utils.store import ResultsStore
+from lidar_crowd.utils.store import ResultsStore
 
 
 class TestPlaceholderTranslation:
     """sqlite '?' -> psycopg2 '%s' (PostgresStore._exec dialect hook)."""
 
     def test_basic(self):
-        from lidar_ai_recommendation_software_tpu.utils.store import (
+        from lidar_crowd.utils.store import (
             translate_placeholders as t)
         assert t("SELECT 1 WHERE a=? AND b=?") == \
             "SELECT 1 WHERE a=%s AND b=%s"
 
     def test_literals_untouched(self):
-        from lidar_ai_recommendation_software_tpu.utils.store import (
+        from lidar_crowd.utils.store import (
             translate_placeholders as t)
         # '?' inside a string literal must survive (the old naive
         # str.replace corrupted it)
@@ -51,7 +51,7 @@ class TestPostgresStore:
         if not dsn.startswith(("postgres://", "postgresql://")):
             pytest.skip("no PostgreSQL DSN configured")
         psycopg2 = pytest.importorskip("psycopg2")
-        from lidar_ai_recommendation_software_tpu.utils.store import (
+        from lidar_crowd.utils.store import (
             PostgresStore)
         try:
             s = PostgresStore(dsn)
@@ -158,7 +158,7 @@ class TestReport:
         assert risk_level(5.0) == "Critical"
 
     def test_report_html(self, fixture_points):
-        from lidar_ai_recommendation_software_tpu.pipeline import Pipeline
+        from lidar_crowd.pipeline import Pipeline
         out = Pipeline().analyze(fixture_points)
         html = generate_report(out["density"], out["flow"],
                                out["recommendations"],
@@ -175,8 +175,8 @@ class TestReport:
         """The PDF export writes an actual PDF (magic %PDF-, multiple
         pages), not the reference's text-file-with-.pdf-extension
         (project_manager.py:379-435)."""
-        from lidar_ai_recommendation_software_tpu.pipeline import Pipeline
-        from lidar_ai_recommendation_software_tpu.utils.project import (
+        from lidar_crowd.pipeline import Pipeline
+        from lidar_crowd.utils.project import (
             ProjectManager)
 
         pm = ProjectManager()
@@ -206,8 +206,8 @@ class TestReport:
 
 class TestViz:
     def test_figures_render(self, fixture_points):
-        from lidar_ai_recommendation_software_tpu.pipeline import Pipeline
-        from lidar_ai_recommendation_software_tpu.utils import viz
+        from lidar_crowd.pipeline import Pipeline
+        from lidar_crowd.utils import viz
         out = Pipeline().analyze(fixture_points)
         for fig in [
             viz.point_cloud_figure(fixture_points,
@@ -225,7 +225,7 @@ class TestViz:
         """Reference branches: all 4 point-cloud color modes
         (visualization.py:38-70), projection-dims histogram at
         resolution 100 and the KD-density scatter fallback (:117-191)."""
-        from lidar_ai_recommendation_software_tpu.utils import viz
+        from lidar_crowd.utils import viz
         pts = fixture_points[:3000]
         for mode in ("Height", "Density", "Distance", "Cluster"):
             clusters = (np.arange(len(pts)) % 7 if mode == "Cluster"
@@ -249,8 +249,8 @@ class TestViz:
         like streamlit)."""
         import pytest
         pytest.importorskip("plotly")
-        from lidar_ai_recommendation_software_tpu.pipeline import Pipeline
-        from lidar_ai_recommendation_software_tpu.utils import viz
+        from lidar_crowd.pipeline import Pipeline
+        from lidar_crowd.utils import viz
         out = Pipeline().analyze(fixture_points)
         figs = [
             viz.point_cloud_figure(fixture_points, engine="plotly"),
@@ -272,7 +272,7 @@ class TestViz:
     def test_engine_auto_without_plotly(self, fixture_points):
         """auto == matplotlib when plotly is absent; explicit plotly
         raises."""
-        from lidar_ai_recommendation_software_tpu.utils import viz
+        from lidar_crowd.utils import viz
         if viz.plotly_go() is not None:
             import pytest
             pytest.skip("plotly installed: auto resolves to plotly")
@@ -286,7 +286,7 @@ class TestViz:
 
 class TestCLI:
     def test_sample_info_analyze(self, tmp_path, capsys):
-        from lidar_ai_recommendation_software_tpu.cli import main
+        from lidar_crowd.cli import main
         venue = str(tmp_path / "v.npy")
         assert main(["sample", "--out", venue]) == 0
         assert main(["info", venue]) == 0
@@ -304,8 +304,8 @@ class TestCLI:
     def test_analyze_downsample_options(self, tmp_path, capsys):
         """--downsample (reference random semantics) and --voxel (device
         voxel grid) both pre-thin the cloud before analysis."""
-        from lidar_ai_recommendation_software_tpu.cli import main
-        from lidar_ai_recommendation_software_tpu.synthetic import (
+        from lidar_crowd.cli import main
+        from lidar_crowd.synthetic import (
             sample_venue)
         venue = str(tmp_path / "v.npy")
         np.save(venue, sample_venue())

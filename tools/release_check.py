@@ -6,7 +6,8 @@ necessary (a broken flagship checkpoint shipped because nothing between
 Runs, in order:
   1. the product test subset — neural serving (executes the committed
      checkpoint), golden pipeline parity, the Streamlit lifecycle, and
-     the degraded-bench contract;
+     the platform contract (compile cache, peaks, chip_smoke refusing
+     the CPU);
   2. a CLI smoke: `lidar-crowd analyze --neural` on a synthetic venue
      must exit 0 and print a people count.
 
@@ -27,7 +28,7 @@ PRODUCT_TESTS = [
     "tests/test_neural.py",
     "tests/test_pipeline.py",
     "tests/test_app_lifecycle.py",
-    "tests/test_bench_degraded.py",
+    "tests/test_platform.py",
 ]
 
 
@@ -45,9 +46,9 @@ def main() -> int:
     # CLI smoke on a fresh venue through the packaged checkpoint
     code = (
         "import numpy as np, tempfile, os, sys\n"
-        "from lidar_ai_recommendation_software_tpu.synthetic import "
+        "from lidar_crowd.synthetic import "
         "sample_venue\n"
-        "from lidar_ai_recommendation_software_tpu import cli\n"
+        "from lidar_crowd import cli\n"
         "pts = sample_venue(n_points=2048, n_people=30, seed=11)\n"
         "p = os.path.join(tempfile.mkdtemp(), 'venue.npy')\n"
         "np.save(p, pts)\n"

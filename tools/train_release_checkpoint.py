@@ -1,7 +1,7 @@
 #!/usr/bin/env python
 """Train and package the shipped CrowdNet checkpoint.
 
-Produces ``lidar_ai_recommendation_software_tpu/assets/crowdnet_tiny.npz``
+Produces ``lidar_crowd/assets/crowdnet_tiny.npz``
 — the artifact ``NeuralPipeline`` (neural.py) loads by default and
 ``lidar-crowd analyze --neural`` serves. The recipe is fixed so the
 committed checkpoint is reproducible: TrainConfig below, AdamW, synthetic
@@ -28,7 +28,7 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 if REPO not in sys.path:
     sys.path.insert(0, REPO)
 DEFAULT_OUT = os.path.join(
-    REPO, "lidar_ai_recommendation_software_tpu", "assets",
+    REPO, "lidar_crowd", "assets",
     "crowdnet_tiny.npz")
 
 
@@ -41,7 +41,7 @@ def main() -> int:
 
     import jax
 
-    from lidar_ai_recommendation_software_tpu.models import train as T
+    from lidar_crowd.models import train as T
 
     # The release recipe. n_points=4096 keeps inference latency and the
     # artifact size small; grid=32 matches the monolith density grid
